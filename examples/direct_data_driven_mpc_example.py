@@ -25,20 +25,20 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from direct_data_driven_mpc_tpu.control.creation import (
+from direct_data_driven_mpc_jax.control.creation import (
     create_data_driven_mpc_controller,
 )
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.operation import (
     generate_initial_input_output_data,
     randomize_initial_system_state,
     simulate_data_driven_mpc_control_loop,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTISystemModel
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.models.lti_model import LTISystemModel
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )
-from direct_data_driven_mpc_tpu.utils.config import (
+from direct_data_driven_mpc_jax.utils.config import (
     get_data_driven_mpc_controller_params,
 )
 
@@ -71,7 +71,7 @@ SLACK_TYPE_MAP = {
 
 def parse_args() -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="Direct Data-Driven MPC Controller Example (TPU-native)"
+        description="Direct Data-Driven MPC Controller Example"
     )
     parser.add_argument(
         "--model_config_path", type=str, default=DEFAULT_MODEL_CONFIG,
@@ -122,11 +122,10 @@ def parse_args() -> argparse.Namespace:
     )
     parser.add_argument(
         "--engine", type=str, default="host",
-        choices=["host", "fused", "linear", "pallas"],
+        choices=["host", "fused", "linear"],
         help="Closed-loop execution engine: host = stateful step loop; "
         "fused = jitted on-device scan; linear = condensed affine "
-        "engine; pallas = the fused-operand TPU kernel (the bench "
-        "headline engine; slack-NONE controllers only, like linear).",
+        "engine (slack-NONE controllers only).",
     )
     parser.add_argument(
         "--u_min", type=float, default=None,
@@ -251,18 +250,18 @@ def main() -> None:
             "--u_min/--u_max require --engine fused (the box-ADMM "
             "solver runs in the generic scan engine)."
         )
-    if args.engine in ("fused", "linear", "pallas"):
+    if args.engine in ("fused", "linear"):
         import jax.numpy as jnp
 
-        from direct_data_driven_mpc_tpu.qp.spec import (
+        from direct_data_driven_mpc_jax.qp.spec import (
             SlackVarConstraintTypes as _S,
         )
 
         w_sys = system_model.get_eps_max() * np_random.uniform(
             -1.0, 1.0, (n_steps, p)
         )
-        if args.engine in ("linear", "pallas"):
-            from direct_data_driven_mpc_tpu.control.linear_engine import (
+        if args.engine == "linear":
+            from direct_data_driven_mpc_jax.control.linear_engine import (
                 build_linear_engine,
                 linear_closed_loop_rollout,
             )
@@ -284,49 +283,23 @@ def main() -> None:
                     -(-n_steps // dd_mpc_controller.n_mpc_step),
                 ),
             )
-            if args.engine == "pallas":
-                from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-                    pallas_batched_rollout,
-                )
-
-                # Single scenario on the kernel: tile to the minimum
-                # 8-sublane batch block, keep lane 0.
-                B = 8
-                tile = lambda a: jnp.tile(jnp.asarray(a, jnp.float32)[None],
-                                          (B,) + (1,) * a.ndim)
-                batch = pallas_batched_rollout(
-                    bm,
-                    tile(system_model.get_state()),
-                    tile(dd_mpc_controller.u_past.reshape(-1, m)),
-                    tile(dd_mpc_controller.y_past.reshape(-1, p)),
-                    tile(w_sys),
-                    n_steps=n_steps,
-                    n_mpc_step=dd_mpc_controller.n_mpc_step,
-                    batch_block=8,
-                )
-                import jax as _jax
-
-                result = _jax.tree.map(
-                    lambda a: a[0] if a.ndim else a, batch
-                )
-            else:
-                result = linear_closed_loop_rollout(
-                    bm,
-                    jnp.asarray(system_model.get_state(), jnp.float32),
-                    jnp.asarray(
-                        dd_mpc_controller.u_past.reshape(-1, m),
-                        jnp.float32,
-                    ),
-                    jnp.asarray(
-                        dd_mpc_controller.y_past.reshape(-1, p),
-                        jnp.float32,
-                    ),
-                    W=jnp.asarray(w_sys, jnp.float32),
-                    n_steps=n_steps,
-                    n_mpc_step=dd_mpc_controller.n_mpc_step,
-                )
+            result = linear_closed_loop_rollout(
+                bm,
+                jnp.asarray(system_model.get_state(), jnp.float32),
+                jnp.asarray(
+                    dd_mpc_controller.u_past.reshape(-1, m),
+                    jnp.float32,
+                ),
+                jnp.asarray(
+                    dd_mpc_controller.y_past.reshape(-1, p),
+                    jnp.float32,
+                ),
+                W=jnp.asarray(w_sys, jnp.float32),
+                n_steps=n_steps,
+                n_mpc_step=dd_mpc_controller.n_mpc_step,
+            )
         else:
-            from direct_data_driven_mpc_tpu.control.loop import (
+            from direct_data_driven_mpc_jax.control.loop import (
                 closed_loop_rollout,
             )
 
@@ -393,12 +366,12 @@ def main() -> None:
         return
 
     # 6. Plot + animate.
-    from direct_data_driven_mpc_tpu.viz.plots import (
+    from direct_data_driven_mpc_jax.viz.plots import (
         plot_input_output,
         plot_input_output_animation,
         save_animation,
     )
-    from direct_data_driven_mpc_tpu.viz.styles import (
+    from direct_data_driven_mpc_jax.viz.styles import (
         INPUT_OUTPUT_PLOT_PARAMS,
         INPUT_OUTPUT_PLOT_PARAMS_SMALL,
     )
@@ -479,4 +452,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from direct_data_driven_mpc_jax.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

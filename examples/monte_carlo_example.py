@@ -1,4 +1,4 @@
-"""Monte-Carlo closed-loop robustness study (TPU-native capability).
+"""Monte-Carlo closed-loop robustness study (batched on-device capability).
 
 Beyond reference parity: simulate THOUSANDS of noise scenarios of a
 data-driven MPC closed loop in one device call (the reference simulates
@@ -20,18 +20,18 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from direct_data_driven_mpc_tpu.control.creation import (
+from direct_data_driven_mpc_jax.control.creation import (
     create_data_driven_mpc_controller,
 )
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.operation import (
     generate_initial_input_output_data,
     randomize_initial_system_state,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTISystemModel
-from direct_data_driven_mpc_tpu.utils.config import (
+from direct_data_driven_mpc_jax.models.lti_model import LTISystemModel
+from direct_data_driven_mpc_jax.utils.config import (
     get_data_driven_mpc_controller_params,
 )
-from direct_data_driven_mpc_tpu.utils.profiling import Timer
+from direct_data_driven_mpc_jax.utils.profiling import Timer
 
 EXAMPLES_DIR = os.path.dirname(os.path.abspath(__file__))
 MODEL_CONFIG = os.path.join(
@@ -70,7 +70,7 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         build_linear_engine,
         closed_loop_spectrum,
         make_linear_batched_rollout,
@@ -97,7 +97,7 @@ def main() -> None:
     )
     ctrl = create_data_driven_mpc_controller(config, u_d, y_d)
     n = ctrl.n
-    from direct_data_driven_mpc_tpu.qp.spec import SlackVarConstraintTypes
+    from direct_data_driven_mpc_jax.qp.spec import SlackVarConstraintTypes
 
     if ctrl.slack_var_constraint_type == SlackVarConstraintTypes.CONVEX:
         raise SystemExit(
@@ -141,12 +141,7 @@ def main() -> None:
         eps_max=system_model.get_eps_max(),
     )
     def run_synced(*a):
-        r = run(*a)
-        jax.block_until_ready(r)
-        # Force true completion: block_until_ready alone does not
-        # synchronize on this platform (see CLAUDE.md).
-        float(r.costs[0, -1])
-        return r
+        return jax.block_until_ready(run(*a))
 
     timer = Timer()
     result = timer.timeit(run_synced, x0s, ups, yps, keys, iters=1,
@@ -213,4 +208,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from direct_data_driven_mpc_jax.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

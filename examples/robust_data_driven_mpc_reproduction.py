@@ -21,20 +21,20 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.operation import (
     generate_initial_input_output_data,
     randomize_initial_system_state,
     simulate_n_input_output_measurements,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTISystemModel
-from direct_data_driven_mpc_tpu.reproduction.paper import (
+from direct_data_driven_mpc_jax.models.lti_model import LTISystemModel
+from direct_data_driven_mpc_jax.reproduction.paper import (
     DataDrivenMPCScheme,
     create_data_driven_mpc_controllers_reproduction,
     get_equilibrium_state_from_output,
     plot_input_output_reproduction,
     simulate_data_driven_mpc_control_loops_reproduction,
 )
-from direct_data_driven_mpc_tpu.utils.config import (
+from direct_data_driven_mpc_jax.utils.config import (
     get_data_driven_mpc_controller_params,
 )
 
@@ -61,7 +61,7 @@ SCHEMES = [
 
 def parse_args() -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="Data-Driven MPC Controller Reproduction (TPU-native)"
+        description="Data-Driven MPC Controller Reproduction"
     )
     parser.add_argument(
         "--t_sim", type=int, default=600,
@@ -210,4 +210,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from direct_data_driven_mpc_jax.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

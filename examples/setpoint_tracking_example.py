@@ -1,5 +1,4 @@
-"""Time-varying setpoint tracking through the condensed fused engine
-(TPU-native capability).
+"""Time-varying setpoint tracking through the condensed fused engine.
 
 Beyond reference parity: drive the closed loop along a SCHEDULE of
 references -- the reference implementation can retarget only by
@@ -25,15 +24,15 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from direct_data_driven_mpc_tpu.control.creation import (
+from direct_data_driven_mpc_jax.control.creation import (
     create_data_driven_mpc_controller,
 )
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.operation import (
     generate_initial_input_output_data,
     randomize_initial_system_state,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTISystemModel
-from direct_data_driven_mpc_tpu.utils.config import (
+from direct_data_driven_mpc_jax.models.lti_model import LTISystemModel
+from direct_data_driven_mpc_jax.utils.config import (
     get_data_driven_mpc_controller_params,
 )
 
@@ -78,13 +77,13 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         build_tracking_engine,
     )
-    from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
+    from direct_data_driven_mpc_jax.ops.fused_rollout import (
         make_fused_batched_rollout,
     )
-    from direct_data_driven_mpc_tpu.parallel.batch import draw_noise_batch
+    from direct_data_driven_mpc_jax.parallel.batch import draw_noise_batch
 
     # Plant + controller from the standard YAML configs.
     system_model = LTISystemModel(
@@ -106,7 +105,7 @@ def main() -> None:
         system_model, config, rng
     )
     ctrl = create_data_driven_mpc_controller(config, u_d, y_d)
-    from direct_data_driven_mpc_tpu.qp.spec import SlackVarConstraintTypes
+    from direct_data_driven_mpc_jax.qp.spec import SlackVarConstraintTypes
 
     if ctrl.slack_var_constraint_type != SlackVarConstraintTypes.NONE:
         raise SystemExit(
@@ -153,9 +152,7 @@ def main() -> None:
         system_model.get_eps_max(), dtype=dtype,
     )
 
-    run = jax.jit(
-        make_fused_batched_rollout(bm, n_steps=T, backend="xla")
-    )
+    run = jax.jit(make_fused_batched_rollout(bm, n_steps=T))
     res = run(x0s, ups, yps, Ws, sched)
     jax.block_until_ready(res)
     y = np.asarray(res.y_sys)  # (B, T, p)
@@ -213,4 +210,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from direct_data_driven_mpc_jax.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

@@ -1,5 +1,6 @@
-"""Measure the CURRENT generic ADMM closed-loop engine vs batch size
-on the real TPU (round-4 calibration for the fused ADMM engine).
+"""Measure the generic ADMM closed-loop engine (control/loop.py) vs
+batch size on the GPU (the calibration point for the fused ADMM
+engine).
 
 For B in the sweep: amortized solves/s of the four-tank CONVEX-slack
 rollout (16 warm-started over-relaxed iterations/solve, the bench
@@ -27,15 +28,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from direct_data_driven_mpc_tpu.control.controller import (
+    from direct_data_driven_mpc_jax.control.controller import (
         DirectDataDrivenMPCController,
     )
-    from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-    from direct_data_driven_mpc_tpu.parallel.batch import (
+    from direct_data_driven_mpc_jax.models.four_tank import four_tank_plant
+    from direct_data_driven_mpc_jax.parallel.batch import (
         batched_closed_loop,
         draw_noise_batch,
     )
-    from direct_data_driven_mpc_tpu.qp.spec import (
+    from direct_data_driven_mpc_jax.qp.spec import (
         DataDrivenMPCType,
         SlackVarConstraintTypes,
     )
@@ -45,22 +46,7 @@ def main():
     T = 400
     n, m, p, N, L = 4, 2, 2, 400, 30
     rng = np.random.default_rng(0)
-    plant_model = LTIModel(
-        A=np.array(
-            [
-                [0.921, 0, 0.041, 0],
-                [0, 0.918, 0, 0.033],
-                [0, 0, 0.924, 0],
-                [0, 0, 0, 0.937],
-            ]
-        ),
-        B=np.array(
-            [[0.017, 0.001], [0.001, 0.023], [0, 0.061], [0.072, 0]]
-        ),
-        C=np.array([[1.0, 0, 0, 0], [0, 1, 0, 0]]),
-        D=np.zeros((2, 2)),
-        eps_max=0.002,
-    )
+    plant_model = four_tank_plant()
     u_d = rng.uniform(-1, 1, (N, m))
     w_d = 0.002 * rng.uniform(-1, 1, (N, p))
     y_d = plant_model.simulate(u_d, w_d, N)
@@ -128,24 +114,23 @@ def main():
             )
 
         t0 = time.perf_counter()
-        cs, ok = amortized(x0s, ups, yps, Ws, 1)
-        _ = float(cs)
+        cs, ok = jax.block_until_ready(amortized(x0s, ups, yps, Ws, 1))
         log(f"B={B}: compile+first {time.perf_counter() - t0:.1f}s, "
             f"converged={bool(ok)}")
         R = max(2, int(2e9 / (B * T)))  # ~2G solves per timing
         best = float("inf")
         for _ in range(2):
             t0 = time.perf_counter()
-            cs, ok = amortized(x0s, ups, yps, Ws, R)
-            _ = float(cs)
+            cs, ok = jax.block_until_ready(
+                amortized(x0s, ups, yps, Ws, R)
+            )
             best = min(best, time.perf_counter() - t0)
         t1 = time.perf_counter()
-        cs, ok = amortized(x0s, ups, yps, Ws, 1)
-        _ = float(cs)
+        cs, ok = jax.block_until_ready(amortized(x0s, ups, yps, Ws, 1))
         t_one = time.perf_counter() - t1
         per_rep = (best - t_one) / (R - 1)
         log(f"B={B}: R={R} wall {best:.2f}s, per-rollout {per_rep:.4f}s"
-            f" -> {B * T / per_rep:,.0f} solves/s on-device, "
+            f" -> {B * T / per_rep:,.0f} solves/s per rollout, "
             f"{B * T * R / best:,.0f} amortized")
 
 

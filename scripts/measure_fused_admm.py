@@ -1,10 +1,10 @@
-"""Measure the round-4 fused ADMM engine on the real TPU.
+"""Measure the fused ADMM engine (ops/fused_admm.py) on the GPU.
 
-Usage: python scripts/measure_fused_admm.py [convex|box] [B] [backend]
-       (backend: pallas | xla; default pallas)
+Usage: python scripts/measure_fused_admm.py
+           [convex|convex_q4|convex_q1|box|ladder|tracking] [B]
+Environment: ADMM_PIPE (row chains, default 1), ADMM_ITERS ("n1,n3,n6").
 
-Prints amortized + on-device solves/s, converged fraction, and a
-small-slice parity probe vs the XLA twin (pallas runs only).
+Prints amortized + per-rollout solves/s and the converged fraction.
 """
 
 from __future__ import annotations
@@ -26,29 +26,29 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from direct_data_driven_mpc_tpu.control.controller import (
+    from direct_data_driven_mpc_jax.control.controller import (
         DirectDataDrivenMPCController,
     )
-    from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-    from direct_data_driven_mpc_tpu.ops.pallas_admm import (
+    from direct_data_driven_mpc_jax.models.four_tank import four_tank_plant
+    from direct_data_driven_mpc_jax.ops.fused_admm import (
         make_fused_admm_rollout,
+        make_fused_ladder_rollout,
+        pick_pack_factor,
     )
-    from direct_data_driven_mpc_tpu.parallel.batch import draw_noise_batch
-    from direct_data_driven_mpc_tpu.qp.admm import (
+    from direct_data_driven_mpc_jax.parallel.batch import draw_noise_batch
+    from direct_data_driven_mpc_jax.qp.admm import (
         compute_admm_operator_np,
     )
-    from direct_data_driven_mpc_tpu.qp.box import (
+    from direct_data_driven_mpc_jax.qp.box import (
         compute_box_admm_operator_np,
     )
-    from direct_data_driven_mpc_tpu.qp.spec import (
+    from direct_data_driven_mpc_jax.qp.spec import (
         DataDrivenMPCType,
         SlackVarConstraintTypes,
     )
 
     variant = sys.argv[1] if len(sys.argv) > 1 else "convex"
     B = int(sys.argv[2]) if len(sys.argv) > 2 else 65536
-    backend = sys.argv[3] if len(sys.argv) > 3 else "pallas"
-    bbq = int(os.environ.get("ADMM_BB", "256"))
     pipe = int(os.environ.get("ADMM_PIPE", "1"))
     iters_env = os.environ.get("ADMM_ITERS")
     T = 400
@@ -58,22 +58,7 @@ def main():
     elif variant == "convex_q1":  # nbox = 120 -> pack factor 1
         N, L = 800, 60
     rng = np.random.default_rng(0)
-    plant_model = LTIModel(
-        A=np.array(
-            [
-                [0.921, 0, 0.041, 0],
-                [0, 0.918, 0, 0.033],
-                [0, 0, 0.924, 0],
-                [0, 0, 0, 0.937],
-            ]
-        ),
-        B=np.array(
-            [[0.017, 0.001], [0.001, 0.023], [0, 0.061], [0.072, 0]]
-        ),
-        C=np.array([[1.0, 0, 0, 0], [0, 1, 0, 0]]),
-        D=np.zeros((2, 2)),
-        eps_max=0.002,
-    )
+    plant_model = four_tank_plant()
     u_d = rng.uniform(-1, 1, (N, m))
     w_d = 0.002 * rng.uniform(-1, 1, (N, p))
     y_d = plant_model.simulate(u_d, w_d, N)
@@ -114,16 +99,12 @@ def main():
     else:
         op = compute_admm_operator_np(ctrl.spec)
         iters, cold, tol = (4, 5, 2), 24, 1e-5
-    from direct_data_driven_mpc_tpu.ops.pallas_admm import (
-        pick_pack_factor,
-    )
     nbox = np.asarray(op["v_c"]).shape[-1]
     log(f"nbox={nbox}, q={pick_pack_factor(nbox)}")
     if iters_env:
         iters = tuple(int(x) for x in iters_env.split(","))
     log(f"device: {jax.devices()[0]}, variant={variant}, B={B}, "
-        f"backend={backend}, iters={iters}, cold={cold}, bbq={bbq}, "
-        f"pipeline={pipe}")
+        f"iters={iters}, cold={cold}, pipeline={pipe}")
 
     plant_params = plant_model.as_params(dtype=np.float32)
     dtype = jnp.float32
@@ -142,18 +123,12 @@ def main():
         n=n, m=m, p=p, n_steps=T, iters=iters, cold_iters=cold, tol=tol
     )
     if variant == "ladder":
-        from direct_data_driven_mpc_tpu.ops.pallas_admm import (
-            make_fused_ladder_rollout,
-        )
-
         run = make_fused_ladder_rollout(
-            plant_params, op, backend=backend, batch_block=bbq,
-            pipeline=pipe, **kw
+            plant_params, op, pipeline=pipe, **kw
         )
     else:
         run = make_fused_admm_rollout(
-            plant_params, op, backend=backend, batch_block=bbq,
-            pipeline=pipe, setpoints=setpoints, **kw
+            plant_params, op, pipeline=pipe, setpoints=setpoints, **kw
         )
 
     @jax.jit
@@ -174,8 +149,7 @@ def main():
         )
 
     t0 = time.perf_counter()
-    cs, ok = amortized(x0s, ups, yps, Ws, 1)
-    _ = float(cs)
+    cs, ok = jax.block_until_ready(amortized(x0s, ups, yps, Ws, 1))
     log(f"compile+first: {time.perf_counter() - t0:.1f}s, "
         f"all-converged={bool(ok)}")
 
@@ -183,39 +157,15 @@ def main():
     best = float("inf")
     for _ in range(2):
         t0 = time.perf_counter()
-        cs, ok = amortized(x0s, ups, yps, Ws, R)
-        _ = float(cs)
+        cs, ok = jax.block_until_ready(amortized(x0s, ups, yps, Ws, R))
         best = min(best, time.perf_counter() - t0)
     t1 = time.perf_counter()
-    cs, ok = amortized(x0s, ups, yps, Ws, 1)
-    _ = float(cs)
+    cs, ok = jax.block_until_ready(amortized(x0s, ups, yps, Ws, 1))
     t_one = time.perf_counter() - t1
     per_rep = (best - t_one) / (R - 1)
     log(f"R={R} wall {best:.2f}s (R=1 {t_one:.2f}s) -> per-rollout "
-        f"{per_rep:.4f}s; {B * T / per_rep:,.0f} solves/s on-device, "
+        f"{per_rep:.4f}s; {B * T / per_rep:,.0f} solves/s per rollout, "
         f"{B * T * R / best:,.0f} amortized; all-converged={bool(ok)}")
-
-    if backend == "pallas":
-        # Small-slice parity probe vs the XLA twin on-chip. (Ladder
-        # note: the twin's rung is whole-batch-shared vs the kernel's
-        # per-batch-block, so du is a tolerance probe, not bitwise.)
-        Bp = 2048
-        if variant == "ladder":
-            twin = make_fused_ladder_rollout(
-                plant_params, op, backend="xla", **kw
-            )
-        else:
-            twin = make_fused_admm_rollout(
-                plant_params, op, backend="xla",
-                setpoints=setpoints, **kw
-            )
-        rk = jax.jit(run)(x0s[:Bp], ups[:Bp], yps[:Bp], Ws[:Bp])
-        rt = jax.jit(twin)(x0s[:Bp], ups[:Bp], yps[:Bp], Ws[:Bp])
-        du = float(jnp.abs(rk.u_sys - rt.u_sys).max())
-        dc = float(jnp.abs(rk.costs - rt.costs).max())
-        fk = float(jnp.mean(rk.converged.astype(jnp.float32)))
-        log(f"probe kernel-vs-twin: du={du:.2e} dcost={dc:.2e} "
-            f"kernel converged frac={fk:.4f}")
 
 
 if __name__ == "__main__":

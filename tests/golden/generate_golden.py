@@ -30,15 +30,15 @@ import scipy.linalg
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-from direct_data_driven_mpc_tpu.control.controller import (  # noqa: E402
+from direct_data_driven_mpc_jax.control.controller import (  # noqa: E402
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.operation import (  # noqa: E402
+from direct_data_driven_mpc_jax.control.operation import (  # noqa: E402
     generate_initial_input_output_data,
     randomize_initial_system_state,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTIModel  # noqa: E402
-from direct_data_driven_mpc_tpu.qp.spec import (  # noqa: E402
+from direct_data_driven_mpc_jax.models.lti_model import LTIModel  # noqa: E402
+from direct_data_driven_mpc_jax.qp.spec import (  # noqa: E402
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )

@@ -7,13 +7,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.ops.host import hankel_matrix_np, lti_rollout_np
-from direct_data_driven_mpc_tpu.qp.batch_build import (
+from direct_data_driven_mpc_jax.ops.host import hankel_matrix_np, lti_rollout_np
+from direct_data_driven_mpc_jax.qp.batch_build import (
     build_batched_solution_operators,
     build_solution_operators_fallback,
     stacked_solution_map,
 )
-from direct_data_driven_mpc_tpu.qp.spec import QPDims
+from direct_data_driven_mpc_jax.qp.spec import QPDims
 
 
 def _realizations(B, seed0=0, N=30, L=6, n=2, m=1, p=1):
@@ -106,15 +106,15 @@ def test_batched_is_faster_than_serial():
 def test_batched_operators_drive_heterogeneous_closed_loop():
     """End to end: batched operators -> stacked SolutionMap ->
     heterogeneous closed loop == per-scenario serial rollouts."""
-    from direct_data_driven_mpc_tpu.control.loop import (
+    from direct_data_driven_mpc_jax.control.loop import (
         closed_loop_rollout,
     )
-    from direct_data_driven_mpc_tpu.ops.lti import LTIParams
-    from direct_data_driven_mpc_tpu.parallel.batch import (
+    from direct_data_driven_mpc_jax.ops.lti import LTIParams
+    from direct_data_driven_mpc_jax.parallel.batch import (
         heterogeneous_closed_loop,
         stack_plants,
     )
-    from direct_data_driven_mpc_tpu.qp.solution_map import SolutionMap
+    from direct_data_driven_mpc_jax.qp.solution_map import SolutionMap
 
     B, n_steps = 3, 10
     Hu, Hy, dims, kw = _realizations(B=B)

@@ -12,13 +12,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.qp.box import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.qp.box import (
     box_admm_solve,
     compute_box_admm_operator_np,
     compute_box_admm_solver,
 )
-from direct_data_driven_mpc_tpu.qp.solution_map import (
+from direct_data_driven_mpc_jax.qp.solution_map import (
     compute_solution_map,
     solve_u,
 )
@@ -120,7 +120,7 @@ def test_active_input_bound_satisfies_kkt(setup):
 def test_convex_slack_box_is_preserved(setup):
     """Adding input bounds to a CONVEX-slack controller keeps the slack
     box rows in the projection."""
-    from direct_data_driven_mpc_tpu.qp.spec import SlackVarConstraintTypes
+    from direct_data_driven_mpc_jax.qp.spec import SlackVarConstraintTypes
 
     plant, ctrl, rng = _make_setup(
         n_mpc_step=1, slack=SlackVarConstraintTypes.CONVEX

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from direct_data_driven_mpc_tpu.models.c2d import c2d_zoh, discretize_plant
+from direct_data_driven_mpc_jax.models.c2d import c2d_zoh, discretize_plant
 
 
 def test_scalar_integrator_closed_form():

@@ -13,19 +13,19 @@ import subprocess
 import numpy as np
 import pytest
 
-from direct_data_driven_mpc_tpu import native
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax import native
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.operation import (
     simulate_data_driven_mpc_control_loop,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )
-from direct_data_driven_mpc_tpu.utils.export import export_controller
+from direct_data_driven_mpc_jax.utils.export import export_controller
 
 pytestmark = pytest.mark.skipif(
     native.build_runtime_demo() is None,

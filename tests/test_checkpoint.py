@@ -6,12 +6,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.segmented import (
+from direct_data_driven_mpc_jax.control.segmented import (
     SegmentState,
     resume_from_checkpoint,
     run_segmented,
 )
-from direct_data_driven_mpc_tpu.utils.checkpoint import (
+from direct_data_driven_mpc_jax.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
@@ -92,11 +92,11 @@ def test_admm_segmented_matches_unsegmented(tmp_path):
     """CONVEX-slack (ADMM) runs must not cold-start at segment
     boundaries: the warm-start state is carried through SegmentState
     (and checkpoints), so segmented == uninterrupted bit-for-bit."""
-    from direct_data_driven_mpc_tpu.parallel.batch import (
+    from direct_data_driven_mpc_jax.parallel.batch import (
         batched_closed_loop,
         draw_noise_batch,
     )
-    from direct_data_driven_mpc_tpu.qp.spec import (
+    from direct_data_driven_mpc_jax.qp.spec import (
         SlackVarConstraintTypes,
     )
 
@@ -169,7 +169,7 @@ def test_profiler_trace_writes_artifacts(tmp_path):
     """jax.profiler tracing hook produces an XPlane artifact."""
     import jax.numpy as jnp
 
-    from direct_data_driven_mpc_tpu.utils.profiling import Timer, trace
+    from direct_data_driven_mpc_jax.utils.profiling import Timer, trace
 
     with trace(str(tmp_path)):
         x = jnp.ones((64, 64)) @ jnp.ones((64, 64))

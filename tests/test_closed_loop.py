@@ -12,17 +12,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.control.operation import (
     generate_initial_input_output_data,
     randomize_initial_system_state,
     simulate_data_driven_mpc_control_loop,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )

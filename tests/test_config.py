@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import yaml
 
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )
-from direct_data_driven_mpc_tpu.utils.config import (
+from direct_data_driven_mpc_jax.utils.config import (
     get_data_driven_mpc_controller_params,
     load_yaml_config_params,
 )

@@ -4,11 +4,11 @@ setpoint updates (reference semantics cited in controller.py)."""
 import numpy as np
 import pytest
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )

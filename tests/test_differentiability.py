@@ -8,11 +8,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_affine_block_map,
     linear_closed_loop_rollout,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
 
 from tests.test_closed_loop import _make_setup
 

@@ -9,18 +9,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams
-from direct_data_driven_mpc_tpu.parallel.mesh import make_scenario_mesh
-from direct_data_driven_mpc_tpu.qp.distributed import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.ops.lti import LTIParams
+from direct_data_driven_mpc_jax.parallel.mesh import make_scenario_mesh
+from direct_data_driven_mpc_jax.qp.distributed import (
     make_distributed_closed_loop,
     make_distributed_kkt_solver,
 )
-from direct_data_driven_mpc_tpu.qp.solution_map import (
+from direct_data_driven_mpc_jax.qp.solution_map import (
     compute_solution_map,
     solve_u,
 )
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )

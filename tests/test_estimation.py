@@ -6,14 +6,14 @@ Expected values mirror the reference docstring example
 
 import numpy as np
 
-from direct_data_driven_mpc_tpu.ops.estimation import (
+from direct_data_driven_mpc_jax.ops.estimation import (
     calculate_equilibrium_input_from_output,
     calculate_equilibrium_output_from_input,
     estimate_initial_state,
     observability_matrix,
     toeplitz_input_output_matrix,
 )
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams, lti_rollout
+from direct_data_driven_mpc_jax.ops.lti import LTIParams, lti_rollout
 
 
 def _four_tank():

@@ -129,7 +129,7 @@ def test_reproduction_cli(monkeypatch, capsys):
 def test_plotting_produces_figures(tmp_path):
     # Exercise the viz layer: static figure + animation export machinery
     # (figure only; ffmpeg encoding is environment-dependent).
-    from direct_data_driven_mpc_tpu.viz.plots import (
+    from direct_data_driven_mpc_jax.viz.plots import (
         create_input_output_figure,
         plot_input_output,
         plot_input_output_animation,
@@ -191,7 +191,7 @@ def test_animation_region_labels_appear_with_reveal():
     Measurement' region labels start hidden and appear once the
     animated shaded region has grown wide enough to hold them
     (reference data_visualization.py:561-604 behavior)."""
-    from direct_data_driven_mpc_tpu.viz.plots import (
+    from direct_data_driven_mpc_jax.viz.plots import (
         plot_input_output_animation,
     )
 
@@ -233,7 +233,7 @@ def test_animation_region_labels_appear_with_reveal():
 def test_static_plot_applies_padded_limits():
     """The static path must apply get_padded_limits (reference
     :292-322), covering data AND setpoints with proportional pad."""
-    from direct_data_driven_mpc_tpu.viz.plots import (
+    from direct_data_driven_mpc_jax.viz.plots import (
         get_padded_limits,
         plot_input_output,
     )
@@ -258,7 +258,7 @@ def test_static_plot_applies_padded_limits():
 
 def test_save_animation_gif_fallback(tmp_path):
     """Animation export works without ffmpeg (Pillow gif fallback)."""
-    from direct_data_driven_mpc_tpu.viz.plots import (
+    from direct_data_driven_mpc_jax.viz.plots import (
         plot_input_output_animation,
         save_animation,
     )

@@ -1,6 +1,5 @@
-"""Fused batched ADMM engine (ops/pallas_admm.py): parity with the
-generic scan engine, the independent active-set golden fixtures, and
-kernel-vs-twin bit-identity (interpret mode on CPU)."""
+"""Fused batched ADMM engine (ops/fused_admm.py): parity with the
+generic scan engine and the independent active-set golden fixtures."""
 
 import numpy as np
 import pytest
@@ -8,20 +7,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams
-from direct_data_driven_mpc_tpu.ops.pallas_admm import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.ops.lti import LTIParams
+from direct_data_driven_mpc_jax.ops.fused_admm import (
     build_fused_admm_operator,
     make_fused_admm_rollout,
     make_fused_ladder_rollout,
     pick_pack_factor,
 )
-from direct_data_driven_mpc_tpu.qp.admm import compute_admm_operator_np
-from direct_data_driven_mpc_tpu.qp.box import compute_box_admm_operator_np
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.qp.admm import compute_admm_operator_np
+from direct_data_driven_mpc_jax.qp.box import compute_box_admm_operator_np
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )
@@ -33,12 +32,12 @@ GOLDEN = pytest.importorskip("os").path.join(
     "golden", "four_tank_box_golden.npz",
 )
 
-#: Default in-kernel iteration schedules (bf16_1x, bf16_3x, HIGHEST),
+#: Default per-solve iteration schedules (bf16_1x, bf16_3x, HIGHEST),
 #: measured against the active-set golden (round-4 sweep): CONVEX
 #: (4,4,2) is the 100%-converged minimum, (4,5,2) adds one margin
 #: iteration; BOX needs all-3x iterations (1-pass bf16 noise ~3e-3 at
 #: |v|~0.85 stalls the fixed point; (0,12,2) is the golden-workload
-#: minimum) plus 4 HIGHEST polish iterations -- at B=65536 on-chip,
+#: minimum) plus 4 f32-grade polish iterations -- at B=65536,
 #: (0,14,2) left 0.13% of lanes above tol while (0,14,4) converges
 #: 100%.
 CONVEX_ITERS = (4, 5, 2)
@@ -79,7 +78,7 @@ def _golden_controller(golden, scheme):
     return DirectDataDrivenMPCController(**kw)
 
 
-def _golden_run(golden, scheme, backend, B=2, **kw):
+def _golden_run(golden, scheme, B=2, **kw):
     ctrl = _golden_controller(golden, scheme)
     if scheme == "CONVEX":
         op = compute_admm_operator_np(ctrl.spec)
@@ -93,7 +92,7 @@ def _golden_run(golden, scheme, backend, B=2, **kw):
     T = golden[f"{scheme}_u"].shape[0]
     run = make_fused_admm_rollout(
         _plant32(), op, n=4, m=2, p=2, n_steps=T, iters=iters,
-        cold_iters=cold, backend=backend, tol=tol, **kw,
+        cold_iters=cold, tol=tol, **kw,
     )
     tile = lambda a: jnp.tile(  # noqa: E731
         jnp.asarray(a, jnp.float32)[None],
@@ -109,10 +108,9 @@ def _golden_run(golden, scheme, backend, B=2, **kw):
 
 @pytest.mark.parametrize("scheme", ["CONVEX", "BOX"])
 def test_fused_admm_twin_matches_golden(golden, scheme):
-    """The fused engine (XLA twin) vs the independent active-set
-    golden: <1e-4 on applied inputs, 100% converged lanes, costs
+    """The fused engine vs the independent active-set golden: <1e-4 on applied inputs, 100% converged lanes, costs
     consistent, box respected."""
-    res = _golden_run(golden, scheme, "xla")
+    res = _golden_run(golden, scheme)
     du = np.abs(
         np.asarray(res.u_sys[0], np.float64) - golden[f"{scheme}_u"]
     ).max()
@@ -126,25 +124,6 @@ def test_fused_admm_twin_matches_golden(golden, scheme):
         assert np.abs(np.asarray(res.u_sys)).max() <= float(
             golden["u_box"]
         ) + 1e-6
-
-
-@pytest.mark.parametrize("scheme", ["CONVEX", "BOX"])
-def test_fused_admm_kernel_bit_identical_to_twin(golden, scheme):
-    """The Pallas kernel (interpret mode) computes the twin's numbers
-    BIT-FOR-BIT (same operators, same precision schedule, same
-    iteration order)."""
-    rt = _golden_run(golden, scheme, "xla")
-    rk = _golden_run(
-        golden, scheme, "pallas", interpret=True, batch_block=1
-    )
-    for f in ("u_sys", "y_sys", "costs", "x_final", "u_past", "y_past"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(rk, f)), np.asarray(getattr(rt, f)),
-            err_msg=f,
-        )
-    np.testing.assert_array_equal(
-        np.asarray(rk.converged), np.asarray(rt.converged)
-    )
 
 
 def test_fused_admm_matches_generic_engine():
@@ -177,7 +156,6 @@ def test_fused_admm_matches_generic_engine():
     run = make_fused_admm_rollout(
         params32, compute_admm_operator_np(ctrl.spec),
         n=4, m=2, p=2, n_steps=T, iters=CONVEX_ITERS, cold_iters=24,
-        backend="xla",
     )
     res = run(x0s, ups, yps, W)
     assert np.abs(
@@ -217,7 +195,7 @@ def test_fused_admm_nstep_cadence(golden):
     run = make_fused_admm_rollout(
         plant32, compute_admm_operator_np(ctrl.spec),
         n=4, m=2, p=2, n_steps=T, n_mpc_step=nb, iters=(4, 8, 2),
-        cold_iters=24, backend="xla",
+        cold_iters=24,
     )
     res = run(x0s, ups, yps, W)
     assert res.u_sys.shape == (B, T, 2)
@@ -245,7 +223,7 @@ def test_fused_admm_warm_start_segmented(golden):
         (B,) + (1,) * np.asarray(a).ndim,
     )
     W = tile(golden["w_sys"][:T])
-    kw = dict(n=4, m=2, p=2, iters=CONVEX_ITERS, backend="xla")
+    kw = dict(n=4, m=2, p=2, iters=CONVEX_ITERS)
     full = make_fused_admm_rollout(
         plant32, op, n_steps=T, cold_iters=24, **kw
     )(tile(golden["x0"]), tile(golden["CONVEX_u_past0"]),
@@ -286,7 +264,6 @@ def test_fused_admm_setpoints_dr0_bit_identical(golden):
     )
     kw = dict(
         n=4, m=2, p=2, n_steps=T, iters=CONVEX_ITERS, cold_iters=24,
-        backend="xla",
     )
     plain = make_fused_admm_rollout(plant32, op, **kw)(*args)
     r_bar = np.asarray(op["r_bar"])
@@ -331,7 +308,7 @@ def test_fused_admm_setpoint_schedule_matches_reinit(golden):
         tile(golden["x0"]), tile(golden["CONVEX_u_past0"]),
         tile(golden["CONVEX_y_past0"]), W,
     )
-    kw = dict(n=4, m=2, p=2, iters=CONVEX_ITERS, backend="xla")
+    kw = dict(n=4, m=2, p=2, iters=CONVEX_ITERS)
 
     sched = np.concatenate(
         [np.tile(r_bar, (T1, 1)), np.tile(r2, (T - T1, 1))]
@@ -378,52 +355,14 @@ def test_fused_admm_setpoint_schedule_matches_reinit(golden):
     ).max()
 
 
-def test_fused_admm_setpoints_kernel_matches_twin(golden):
-    """The tracked KERNEL path (interpret mode) stays bit-identical to
-    the tracked twin."""
-    ctrl = _golden_controller(golden, "CONVEX")
-    op = compute_admm_operator_np(ctrl.spec, return_setpoint_maps=True)
-    T, B = 12, 4
-    plant32 = _plant32()
-    tile = lambda a: jnp.tile(  # noqa: E731
-        jnp.asarray(a, jnp.float32)[None],
-        (B,) + (1,) * np.asarray(a).ndim,
-    )
-    args = (
-        tile(golden["x0"]), tile(golden["CONVEX_u_past0"]),
-        tile(golden["CONVEX_y_past0"]), tile(golden["w_sys"][:T]),
-    )
-    r_bar = np.asarray(op["r_bar"])
-    sched = np.concatenate(
-        [np.tile(r_bar, (T // 2, 1)),
-         np.tile(0.8 * r_bar, (T - T // 2, 1))]
-    )
-    kw = dict(
-        n=4, m=2, p=2, n_steps=T, iters=CONVEX_ITERS, cold_iters=24,
-        setpoints=sched, batch_block=2,
-    )
-    twin = make_fused_admm_rollout(plant32, op, backend="xla", **kw)(
-        *args
-    )
-    kern = make_fused_admm_rollout(
-        plant32, op, backend="pallas", interpret=True, **kw
-    )(*args)
-    np.testing.assert_array_equal(
-        np.asarray(kern.u_sys), np.asarray(twin.u_sys)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(kern.costs), np.asarray(twin.costs)
-    )
-
-
 def test_fused_admm_pipeline_parity(golden):
-    """The pipeline row-split (independent MXU/VPU chains inside the
-    iteration loop) leaves every row's math unchanged up to the
+    """The pipeline row-split (independent matmul/update chains inside
+    the iteration loop) leaves every row's math unchanged up to the
     backend's per-shape gemm accumulation order (measured ~2e-9 on
     CPU): pipeline=2 vs pipeline=1 within a tight slice of the 1e-4
     parity budget over the full rollout."""
-    r1 = _golden_run(golden, "CONVEX", "xla", B=4, pipeline=1)
-    r2 = _golden_run(golden, "CONVEX", "xla", B=4, pipeline=2)
+    r1 = _golden_run(golden, "CONVEX", B=4, pipeline=1)
+    r2 = _golden_run(golden, "CONVEX", B=4, pipeline=2)
     np.testing.assert_allclose(
         np.asarray(r1.u_sys), np.asarray(r2.u_sys), atol=1e-6
     )
@@ -440,7 +379,7 @@ def test_stack6_dot_is_f32_grade():
     """The merged 6-pass stacked dot must be f32-grade: vs a float64
     reference its error is within 4x the native f32 HIGHEST dot's on
     ill-scaled operands (and orders of magnitude below 3-pass)."""
-    from direct_data_driven_mpc_tpu.ops.pallas_admm import (
+    from direct_data_driven_mpc_jax.ops.fused_admm import (
         _dot3,
         _dot6s,
         _stack3,
@@ -484,9 +423,8 @@ def test_pack_factor_and_ladder_rejection(golden):
 
 def test_sharded_fused_admm_matches_unsharded(golden):
     """The fused ADMM engine under shard_map over the virtual 8-device
-    mesh (XLA twin; Mosaic cannot compile on CPU) reproduces the
-    unsharded engine and psum-reduces the metrics."""
-    from direct_data_driven_mpc_tpu.parallel.mesh import (
+    mesh reproduces the unsharded engine and psum-reduces the metrics."""
+    from direct_data_driven_mpc_jax.parallel.mesh import (
         make_scenario_mesh,
         make_sharded_fused_admm_rollout,
     )
@@ -511,7 +449,6 @@ def test_sharded_fused_admm_matches_unsharded(golden):
     )
     kw = dict(
         n=4, m=2, p=2, n_steps=T, iters=CONVEX_ITERS, cold_iters=24,
-        backend="xla",
     )
     sharded = make_sharded_fused_admm_rollout(mesh, plant32, op, **kw)
     res_s, metrics = sharded(*args)
@@ -538,7 +475,7 @@ def test_fused_admm_pack_factors(L, expected_q):
     """The packing generalizes: q=4 (nbox <= 32) and q=1 (nbox > 64)
     paths must match the generic engine too (the golden configs only
     exercise q=2)."""
-    from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
+    from direct_data_driven_mpc_jax.models.lti_model import LTIModel
 
     rng = np.random.default_rng(3)
     plant_model = LTIModel(
@@ -591,30 +528,21 @@ def test_fused_admm_pack_factors(L, expected_q):
     # generous schedule + the f32-budget tolerance.
     run = make_fused_admm_rollout(
         params32, op, n=n, m=m, p=p, n_steps=T, iters=(0, 16, 6),
-        cold_iters=60, backend="xla", tol=1e-4,
+        cold_iters=60, tol=1e-4,
     )
     res = run(x0s, ups, yps, W)
     assert np.abs(
         np.asarray(res.u_sys) - np.asarray(ref.u_sys)
     ).max() < 1e-4
     assert float(np.asarray(res.converged).mean()) == 1.0
-    # Kernel (interpret) bit-parity at this pack factor too.
-    # batch_block must cover the whole packed batch for bitwise
-    # comparison (smaller blocks change XLA's row grouping on CPU).
-    rk = make_fused_admm_rollout(
-        params32, op, n=n, m=m, p=p, n_steps=T, iters=(0, 16, 6),
-        cold_iters=60, backend="pallas", interpret=True,
-        batch_block=B // expected_q, tol=1e-4,
-    )(x0s, ups, yps, W)
-    np.testing.assert_array_equal(
-        np.asarray(rk.u_sys), np.asarray(res.u_sys)
-    )
+    assert res.u_sys.shape == (B, T, m)
+    assert res.solver_state.s.shape == (B, nbox)
 
 
 def test_fused_ladder_matches_golden(golden):
-    """The ADAPTIVE-ladder fused engine (twin) must reproduce the f64
+    """The ADAPTIVE-ladder fused engine must reproduce the f64
     active-set golden on the saturated box -- starting from the
-    DEFAULT middle rung, the block-shared residual balancer must climb
+    DEFAULT middle rung, the batch-shared residual balancer must climb
     to the saturated regime's rung and converge every solve."""
     ctrl = _golden_controller(golden, "BOX")
     ladder_op = compute_box_admm_operator_np(
@@ -630,7 +558,7 @@ def test_fused_ladder_matches_golden(golden):
     )
     run = make_fused_ladder_rollout(
         _plant32(), ladder_op, n=4, m=2, p=2, n_steps=T,
-        iters=BOX_ITERS, cold_iters=60, backend="xla", tol=2e-5,
+        iters=BOX_ITERS, cold_iters=60, tol=2e-5,
     )
     res = run(
         tile(golden["x0"]), tile(golden["BOX_u_past0"]),
@@ -648,45 +576,6 @@ def test_fused_ladder_matches_golden(golden):
     # The rung actually adapted away from the initial middle rung.
     assert int(np.asarray(res.solver_state.rho_idx)[0]) != (
         ladder_op["rhos"].shape[0] // 2
-    )
-
-
-def test_fused_ladder_kernel_bit_identical_to_twin(golden):
-    """Ladder kernel (interpret mode, single batch block so the
-    block-shared rung grouping matches the twin's) == twin bitwise."""
-    ctrl = _golden_controller(golden, "BOX")
-    ladder_op = compute_box_admm_operator_np(
-        ctrl.spec,
-        u_bounds=(-float(golden["u_box"]), float(golden["u_box"])),
-    )
-    T, B = 16, 4
-    tile = lambda a: jnp.tile(  # noqa: E731
-        jnp.asarray(a, jnp.float32)[None],
-        (B,) + (1,) * np.asarray(a).ndim,
-    )
-    args = (
-        tile(golden["x0"]), tile(golden["BOX_u_past0"]),
-        tile(golden["BOX_y_past0"]), tile(golden["w_sys"][:T]),
-    )
-    kw = dict(
-        n=4, m=2, p=2, n_steps=T, iters=BOX_ITERS, cold_iters=60,
-        tol=2e-5, batch_block=B // 2,
-    )
-    twin = make_fused_ladder_rollout(
-        _plant32(), ladder_op, backend="xla", **kw
-    )(*args)
-    kern = make_fused_ladder_rollout(
-        _plant32(), ladder_op, backend="pallas", interpret=True, **kw
-    )(*args)
-    np.testing.assert_array_equal(
-        np.asarray(kern.u_sys), np.asarray(twin.u_sys)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(kern.costs), np.asarray(twin.costs)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(kern.solver_state.rho_idx),
-        np.asarray(twin.solver_state.rho_idx),
     )
 
 
@@ -710,7 +599,7 @@ def test_fused_ladder_rung_settles_loose_box():
             [0, 0, 0, 0.937],
         ]
     )
-    from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
+    from direct_data_driven_mpc_jax.models.lti_model import LTIModel
 
     plant_model = LTIModel(
         A=A,
@@ -749,7 +638,7 @@ def test_fused_ladder_rung_settles_loose_box():
     )
     kw = dict(
         n=4, m=2, p=2, n_steps=T, iters=(0, 14, 4), cold_iters=60,
-        backend="xla", tol=2e-5,
+        tol=2e-5,
     )
     run = make_fused_ladder_rollout(
         plant_model.as_params(dtype=np.float32), ladder_op, **kw
@@ -766,7 +655,7 @@ def test_fused_ladder_rung_settles_loose_box():
     # the warm start is far off for the first few solves), every solve
     # converges and the trajectory matches the EXACT unconstrained
     # condensed solve.
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         build_linear_engine,
         make_linear_batched_rollout,
     )
@@ -804,7 +693,7 @@ def test_fused_ladder_segmented_restart_rung_contract(golden):
         tile(golden["x0"]), tile(golden["BOX_u_past0"]),
         tile(golden["BOX_y_past0"]), W,
     )
-    kw = dict(n=4, m=2, p=2, iters=BOX_ITERS, backend="xla", tol=2e-5)
+    kw = dict(n=4, m=2, p=2, iters=BOX_ITERS, tol=2e-5)
     full = make_fused_ladder_rollout(
         _plant32(), ladder_op, n_steps=T, cold_iters=60, **kw
     )(*args)

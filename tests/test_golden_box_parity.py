@@ -22,12 +22,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.ops.lti import LTIParams
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )

@@ -21,21 +21,21 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_linear_engine,
     linear_closed_loop_rollout,
     time_parallel_rollout,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.control.operation import (
     simulate_data_driven_mpc_control_loop,
 )
-from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+from direct_data_driven_mpc_jax.ops.lti import LTIParams
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )
@@ -170,10 +170,10 @@ def test_time_parallel_engine_matches_golden(golden, scheme):
 
 @pytest.mark.parametrize("scheme", ["TEC"])
 def test_pallas_kernel_matches_golden(golden, scheme):
-    """The Pallas kernel (interpret mode on CPU) must hit the same
-    float32 budget as the XLA engines."""
-    from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-        pallas_batched_rollout,
+    """The fused condensed rollout (the bench headline engine) must
+    hit the same float32 budget as the other engines."""
+    from direct_data_driven_mpc_jax.ops.fused_rollout import (
+        fused_batched_rollout,
     )
 
     ctrl = _controller(golden, scheme)
@@ -186,8 +186,7 @@ def test_pallas_kernel_matches_golden(golden, scheme):
     x0, up, yp, W, n_steps, n_mpc_step = _inputs(
         golden, scheme, jnp.float32
     )
-    result = pallas_batched_rollout(
-        bm, x0[None], up[None], yp[None], W[None],
-        n_steps=n_steps, batch_block=1, interpret=True,
+    result = fused_batched_rollout(
+        bm, x0[None], up[None], yp[None], W[None], n_steps=n_steps,
     )
     assert _du(result.u_sys[0], golden, scheme) < F32_BUDGET

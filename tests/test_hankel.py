@@ -7,7 +7,7 @@ The expected values mirror the reference's docstring examples
 import numpy as np
 import pytest
 
-from direct_data_driven_mpc_tpu.ops.hankel import (
+from direct_data_driven_mpc_jax.ops.hankel import (
     evaluate_persistent_excitation,
     hankel_matrix,
 )

@@ -13,8 +13,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from direct_data_driven_mpc_tpu.ops import host
-from direct_data_driven_mpc_tpu.ops.estimation import (
+from direct_data_driven_mpc_jax.ops import host
+from direct_data_driven_mpc_jax.ops.estimation import (
     calculate_equilibrium_input_from_output,
     calculate_equilibrium_output_from_input,
     dc_gain,
@@ -22,11 +22,11 @@ from direct_data_driven_mpc_tpu.ops.estimation import (
     observability_matrix,
     toeplitz_input_output_matrix,
 )
-from direct_data_driven_mpc_tpu.ops.hankel import (
+from direct_data_driven_mpc_jax.ops.hankel import (
     evaluate_persistent_excitation,
     hankel_matrix,
 )
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams, lti_rollout
+from direct_data_driven_mpc_jax.ops.lti import LTIParams, lti_rollout
 
 
 def _random_stable_system(rng, ns, m, p):

@@ -6,15 +6,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_affine_block_map,
     linear_closed_loop_rollout,
     make_linear_batched_rollout,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
 
 from tests.test_closed_loop import _make_setup
-from direct_data_driven_mpc_tpu.qp.spec import DataDrivenMPCType
+from direct_data_driven_mpc_jax.qp.spec import DataDrivenMPCType
 
 
 @pytest.mark.parametrize(
@@ -105,7 +105,7 @@ def _integrator_setup(a_diag: float):
     radius equals ``a_diag`` -- an eigenvalue at/near 1 makes I - M
     (near-)singular, the centering robustness edge (VERDICT round-3
     weak #6)."""
-    from direct_data_driven_mpc_tpu.ops.lti import LTIParams
+    from direct_data_driven_mpc_jax.ops.lti import LTIParams
 
     plant = LTIParams(
         A=np.array([[a_diag]]),

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams, lti_rollout, lti_step
+from direct_data_driven_mpc_jax.ops.lti import LTIParams, lti_rollout, lti_step
 
 
 def _numpy_rollout(A, B, C, D, x0, U, W):

@@ -8,12 +8,15 @@ import pytest
 
 import jax
 
-from direct_data_driven_mpc_tpu.parallel import multihost
-from direct_data_driven_mpc_tpu.parallel.multihost import (
+from direct_data_driven_mpc_jax.parallel import multihost
+from direct_data_driven_mpc_jax.parallel.multihost import (
     global_scenario_keys,
     initialize_distributed,
     make_global_mesh,
 )
+
+
+COORDINATOR_VARS = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
 
 
 def _fake_topology(monkeypatch, n_proc, pid):
@@ -38,8 +41,7 @@ class _InitRecorder:
 def record_init(monkeypatch):
     rec = _InitRecorder()
     monkeypatch.setattr(jax.distributed, "initialize", rec)
-    for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-                "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_ID"):
+    for var in COORDINATOR_VARS:
         monkeypatch.delenv(var, raising=False)
     return rec
 
@@ -67,15 +69,18 @@ def test_initialize_clean_env_is_noop(record_init):
     assert record_init.calls == []
 
 
-@pytest.mark.parametrize(
-    "var",
-    ["JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-     "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_ID"],
-)
+@pytest.mark.parametrize("var", COORDINATOR_VARS)
 def test_initialize_env_detection_branches(record_init, monkeypatch, var):
     monkeypatch.setenv(var, "somewhere:999")
     initialize_distributed()
     assert record_init.calls == [{"coordinator_address": None}]
+
+
+@pytest.mark.parametrize("var", COORDINATOR_VARS)
+def test_initialize_empty_env_value_is_noop(record_init, monkeypatch, var):
+    monkeypatch.setenv(var, "")
+    initialize_distributed()
+    assert record_init.calls == []
 
 
 def test_initialize_explicit_coordinator_triggers_autodetect(record_init):

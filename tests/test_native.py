@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from direct_data_driven_mpc_tpu import native
-from direct_data_driven_mpc_tpu.qp.admm import admm_solve_np
+from direct_data_driven_mpc_jax import native
+from direct_data_driven_mpc_jax.qp.admm import admm_solve_np
 
 from tests.test_qp import _small_problem
-from direct_data_driven_mpc_tpu.qp.admm import compute_admm_operator_np
-from direct_data_driven_mpc_tpu.qp.solution_map import (
+from direct_data_driven_mpc_jax.qp.admm import compute_admm_operator_np
+from direct_data_driven_mpc_jax.qp.solution_map import (
     compute_solution_operator_np,
 )
-from direct_data_driven_mpc_tpu.qp.spec import SlackVarConstraintTypes
+from direct_data_driven_mpc_jax.qp.spec import SlackVarConstraintTypes
 
 pytestmark = pytest.mark.skipif(
     native.get_lib() is None, reason="no C compiler available"
@@ -54,7 +54,7 @@ def test_controller_uses_native_and_matches(monkeypatch):
     """The controller must produce the same trajectory with and without
     the native path."""
     from tests.test_closed_loop import _make_setup
-    from direct_data_driven_mpc_tpu.control.operation import (
+    from direct_data_driven_mpc_jax.control.operation import (
         simulate_data_driven_mpc_control_loop,
     )
 

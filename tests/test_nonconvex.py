@@ -21,14 +21,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.qp.admm import admm_solve_np
-from direct_data_driven_mpc_tpu.qp.nonconvex import (
+from direct_data_driven_mpc_jax.qp.admm import admm_solve_np
+from direct_data_driven_mpc_jax.qp.nonconvex import (
     compute_nonconvex_admm_solver,
     compute_nonconvex_operator_np,
     nonconvex_admm_solve,
     nonconvex_admm_solve_np,
 )
-from direct_data_driven_mpc_tpu.qp.spec import SlackVarConstraintTypes
+from direct_data_driven_mpc_jax.qp.spec import SlackVarConstraintTypes
 
 from test_qp import _small_problem
 
@@ -89,7 +89,7 @@ def test_cost_never_exceeds_convex_variant(nc_problem):
     op = compute_nonconvex_operator_np(spec)
     _, cost_nc, _, stats = nonconvex_admm_solve_np(op, theta)
     assert stats[-1]
-    from direct_data_driven_mpc_tpu.qp.admm import (
+    from direct_data_driven_mpc_jax.qp.admm import (
         compute_admm_operator_np,
     )
 
@@ -145,14 +145,14 @@ def test_warm_start_outer_converges_immediately(nc_problem):
 def test_closed_loop_with_nonconvex_solver():
     """Full fused rollout (lax.scan) with the Eq. 6d solver: all lanes
     converge, the loop is stable, and the output tracks the setpoint."""
-    from direct_data_driven_mpc_tpu.control.controller import (
+    from direct_data_driven_mpc_jax.control.controller import (
         DirectDataDrivenMPCController,
     )
-    from direct_data_driven_mpc_tpu.control.loop import (
+    from direct_data_driven_mpc_jax.control.loop import (
         closed_loop_rollout,
     )
-    from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-    from direct_data_driven_mpc_tpu.qp.spec import (
+    from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+    from direct_data_driven_mpc_jax.qp.spec import (
         DataDrivenMPCType,
     )
 
@@ -208,11 +208,11 @@ def test_closed_loop_with_nonconvex_solver():
 def test_controller_nonconvex_parity_raise_and_optin():
     """The reference-parity raise stays the DEFAULT controller
     behavior; the opt-in flag unlocks the solver."""
-    from direct_data_driven_mpc_tpu.control.controller import (
+    from direct_data_driven_mpc_jax.control.controller import (
         DirectDataDrivenMPCController,
     )
-    from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-    from direct_data_driven_mpc_tpu.qp.spec import DataDrivenMPCType
+    from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+    from direct_data_driven_mpc_jax.qp.spec import DataDrivenMPCType
 
     rng = np.random.default_rng(0)
     plant = LTIModel(

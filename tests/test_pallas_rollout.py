@@ -1,5 +1,5 @@
-"""Pallas fused-rollout kernel vs the XLA condensed engine (interpret
-mode on CPU; the real kernel runs on TPU in bench.py)."""
+"""Fused condensed rollout (ops/fused_rollout.py, the bench headline
+engine) vs the condensed linear engine."""
 
 import numpy as np
 import pytest
@@ -7,12 +7,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_affine_block_map,
     make_linear_batched_rollout,
 )
-from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-    pallas_batched_rollout,
+from direct_data_driven_mpc_jax.ops.fused_rollout import (
+    fused_batched_rollout,
 )
 
 from tests.test_closed_loop import _make_setup
@@ -44,10 +44,7 @@ def test_pallas_kernel_matches_linear_engine(n_steps, K):
     ref_run = make_linear_batched_rollout(bm, n_steps=n_steps)
     ref = ref_run(x0s, ups, yps, Ws)
 
-    res = pallas_batched_rollout(
-        bm, x0s, ups, yps, Ws, n_steps=n_steps,
-        batch_block=8, interpret=True,
-    )
+    res = fused_batched_rollout(bm, x0s, ups, yps, Ws, n_steps=n_steps)
     np.testing.assert_allclose(
         np.asarray(res.u_sys), np.asarray(ref.u_sys), atol=2e-5
     )
@@ -61,34 +58,18 @@ def test_pallas_kernel_matches_linear_engine(n_steps, K):
     np.testing.assert_allclose(
         np.asarray(res.u_past), np.asarray(ref.u_past), atol=2e-5
     )
-
-    # The fused-operator XLA twin (same operator, lax.scan instead of
-    # the Pallas grid) must produce the same trajectories and costs.
-    xla_twin = pallas_batched_rollout(
-        bm, x0s, ups, yps, Ws, n_steps=n_steps, backend="xla",
-    )
     np.testing.assert_allclose(
-        np.asarray(xla_twin.u_sys), np.asarray(ref.u_sys), atol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(xla_twin.y_sys), np.asarray(ref.y_sys), atol=2e-5
-    )
-    # rtol 1e-3: the default cost channel is bf16_3x (accumulation
-    # order differs between the kernel grid and the scan twin).
-    np.testing.assert_allclose(
-        np.asarray(xla_twin.costs), np.asarray(res.costs), rtol=1e-3,
-        atol=1e-6,
+        np.asarray(res.x_final), np.asarray(ref.x_final), atol=2e-5
     )
 
 
 def test_cost_precision_split_path_matches_fused():
     """The mixed-precision cost channel (parity-bound columns at
     HIGHEST, cost-feature columns via the explicit bf16_3x
-    decomposition, ops/pallas_rollout.py) must leave u/y/state
+    decomposition, ops/fused_rollout.py) must leave u/y/state
     BIT-IDENTICAL (same HIGHEST dot over the same columns) and keep
-    costs within the bf16_3x error bound, in both the interpreted
-    kernel and the XLA twin. Locks the offset arithmetic and the hi/lo
-    operand decomposition of the split path."""
+    costs within the bf16_3x error bound. Locks the offset arithmetic
+    and the hi/lo operand decomposition of the split path."""
     plant, ctrl, rng = _make_setup(n_mpc_step=1)
     bm = build_affine_block_map(
         plant.as_params(), ctrl._op, n=4, m=2, p=2,
@@ -109,46 +90,34 @@ def test_cost_precision_split_path_matches_fused():
     Ws = jnp.asarray(
         0.002 * rng.uniform(-1, 1, (B, n_steps, 2)), jnp.float32
     )
-    for backend in ("pallas", "xla"):
-        kw = (
-            dict(batch_block=8, interpret=True)
-            if backend == "pallas"
-            else {}
+    fused = fused_batched_rollout(
+        bm, x0s, ups, yps, Ws, n_steps=n_steps, cost_precision="highest",
+    )
+    split = fused_batched_rollout(
+        bm, x0s, ups, yps, Ws, n_steps=n_steps, cost_precision="high",
+    )
+    for field in ("u_sys", "y_sys", "x_final"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(split, field)),
+            np.asarray(getattr(fused, field)),
+            err_msg=field,
         )
-        fused = pallas_batched_rollout(
-            bm, x0s, ups, yps, Ws, n_steps=n_steps, backend=backend,
-            cost_precision="highest", **kw,
-        )
-        split = pallas_batched_rollout(
-            bm, x0s, ups, yps, Ws, n_steps=n_steps, backend=backend,
-            cost_precision="high", **kw,
-        )
-        for field in ("u_sys", "y_sys", "x_final"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(split, field)),
-                np.asarray(getattr(fused, field)),
-                err_msg=f"{backend}:{field}",
-            )
-        np.testing.assert_allclose(
-            np.asarray(split.costs), np.asarray(fused.costs),
-            rtol=1e-3, atol=1e-5, err_msg=f"{backend}:costs",
-        )
+    np.testing.assert_allclose(
+        np.asarray(split.costs), np.asarray(fused.costs),
+        rtol=1e-3, atol=1e-5,
+    )
     with pytest.raises(ValueError, match="cost_precision"):
-        pallas_batched_rollout(
-            bm, x0s, ups, yps, Ws, n_steps=n_steps, backend="xla",
+        fused_batched_rollout(
+            bm, x0s, ups, yps, Ws, n_steps=n_steps,
             cost_precision="bfloat16",
         )
 
 
 def test_cost_mode_post_matches_inkernel():
     """cost_mode="post" (cost channel reconstructed from emitted
-    trajectories -- the large-plant VMEM fix) must leave u/y untouched
-    and reproduce the per-solve costs to diagnostic accuracy, on both
-    the XLA twin and the kernel (interpret), incl. n-step cadence and
-    trailing trim."""
-    from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-        pallas_batched_rollout,
-    )
+    trajectories, for large-state configs) must leave u/y untouched
+    and reproduce the per-solve costs to diagnostic accuracy, incl.
+    n-step cadence and trailing trim."""
 
     for n_mpc_step, n_steps in ((1, 48), (4, 42)):
         plant, ctrl, rng = _make_setup(n_mpc_step=n_mpc_step)
@@ -172,13 +141,13 @@ def test_cost_mode_post_matches_inkernel():
         Ws = jnp.asarray(
             0.002 * rng.uniform(-1, 1, (B, n_steps, 2)), jnp.float32
         )
-        ref = pallas_batched_rollout(
+        ref = fused_batched_rollout(
             bm, x0s, ups, yps, Ws, n_steps=n_steps,
-            n_mpc_step=n_mpc_step, backend="xla",
+            n_mpc_step=n_mpc_step,
         )
-        post = pallas_batched_rollout(
+        post = fused_batched_rollout(
             bm, x0s, ups, yps, Ws, n_steps=n_steps,
-            n_mpc_step=n_mpc_step, backend="xla", cost_mode="post",
+            n_mpc_step=n_mpc_step, cost_mode="post",
         )
         np.testing.assert_array_equal(
             np.asarray(post.u_sys), np.asarray(ref.u_sys)
@@ -191,24 +160,22 @@ def test_cost_mode_post_matches_inkernel():
             np.asarray(post.costs), np.asarray(ref.costs), rtol=1e-3,
             atol=1e-3,
         )
-        kern = pallas_batched_rollout(
+        # The post-pass is a pure function of the emitted trajectories:
+        # the same call again reproduces it bit for bit.
+        again = fused_batched_rollout(
             bm, x0s, ups, yps, Ws, n_steps=n_steps,
-            n_mpc_step=n_mpc_step, backend="pallas", interpret=True,
-            batch_block=4, cost_mode="post",
+            n_mpc_step=n_mpc_step, cost_mode="post",
         )
         np.testing.assert_array_equal(
-            np.asarray(kern.u_sys), np.asarray(post.u_sys)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(kern.costs), np.asarray(post.costs)
+            np.asarray(again.costs), np.asarray(post.costs)
         )
 
 
 def test_cost_mode_post_rejects_tracking_maps():
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         build_tracking_engine,
     )
-    from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
+    from direct_data_driven_mpc_jax.ops.fused_rollout import (
         make_fused_batched_rollout,
     )
 
@@ -219,7 +186,7 @@ def test_cost_mode_post_rejects_tracking_maps():
     )
     with pytest.raises(NotImplementedError, match="post"):
         make_fused_batched_rollout(
-            bm_t, n_steps=16, backend="xla", cost_mode="post"
+            bm_t, n_steps=16, cost_mode="post"
         )
 
 
@@ -230,7 +197,7 @@ def test_cost_rank_truncation_bounds():
     truncation; 1e-6 default drops nothing on this config)."""
     import numpy as np
 
-    from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
+    from direct_data_driven_mpc_jax.ops.fused_rollout import (
         make_fused_batched_rollout,
     )
 
@@ -254,11 +221,11 @@ def test_cost_rank_truncation_bounds():
         (B, 1, 1),
     )
     Ws = jnp.asarray(0.002 * rng.uniform(-1, 1, (B, T, 2)), jnp.float32)
-    full = make_fused_batched_rollout(bm, T, backend="xla")(
+    full = make_fused_batched_rollout(bm, T)(
         x0s, ups, yps, Ws
     )
     trunc = make_fused_batched_rollout(
-        bm, T, backend="xla", cost_rank_rtol=rtol
+        bm, T, cost_rank_rtol=rtol
     )(x0s, ups, yps, Ws)
     np.testing.assert_array_equal(
         np.asarray(trunc.u_sys), np.asarray(full.u_sys)
@@ -280,27 +247,19 @@ def test_cost_rank_truncation_bounds():
     assert np.abs(c_tr - c_full).max() <= dropped * th_max
 
 
-def test_noise_rotation_index_map_matches_roll():
-    """The scalar-prefetch noise rotation (w_off in the index map) must
-    be BIT-identical to a materialized jnp.roll of the packed noise --
-    the amortized harness's per-rep variation without the ~1 GB/rep
-    copy at headline batch sizes."""
-    from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-        _build_fused_operator,
-        _center_and_pack,
-        _make_rollout_from_fused,
+def test_amortized_run_rolls_noise_per_rep():
+    """Repetition i of the amortized harness runs the rollout on the
+    packed noise rolled by i outer blocks: the checksum of R reps
+    equals the sum of R single rollouts on explicitly rolled noise."""
+    from direct_data_driven_mpc_jax.ops.fused_rollout import (
+        make_amortized_fused_run,
     )
 
     plant, ctrl, rng = _make_setup(n_mpc_step=1)
-    K, n_steps, B = 8, 40, 16
+    K, n_steps, B = 8, 40, 4
     bm = build_affine_block_map(
         plant.as_params(), ctrl._op, n=4, m=2, p=2,
         solves_per_block=K, dtype=jnp.float32,
-    )
-    n_outer = n_steps // K
-    fused = _build_fused_operator(bm)
-    kernel = _make_rollout_from_fused(
-        fused, n_outer, batch_block=8, interpret=True
     )
     x0s = jnp.tile(
         jnp.asarray(plant.get_state(), jnp.float32)[None], (B, 1)
@@ -316,73 +275,24 @@ def test_noise_rotation_index_map_matches_roll():
     Ws = jnp.asarray(
         0.002 * rng.uniform(-1, 1, (B, n_steps, 2)), jnp.float32
     )
-    s0, W_packed = _center_and_pack(
-        bm, x0s, ups, yps, Ws, n_outer, K, 0
-    )
-    for i in (0, 1, 3):
-        rolled = kernel(s0, jnp.roll(W_packed, i, axis=0))
-        rotated = kernel(
-            s0, W_packed, w_off=jnp.mod(-jnp.int32(i), n_outer)
+    run = make_amortized_fused_run(bm, n_steps=n_steps)
+    cs3, ok = run(x0s, ups, yps, Ws, 3)
+    assert bool(ok)
+    expect = 0.0
+    for i in range(3):
+        # Rolling the packed noise by i outer blocks == rolling the
+        # time axis by i * K steps.
+        res = fused_batched_rollout(
+            bm, x0s, ups, yps, jnp.roll(Ws, i * K, axis=1),
+            n_steps=n_steps,
         )
-        for a, b in zip(rolled, rotated):
-            if a is None:
-                continue
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_stacked_highest_matches_reference():
-    """stacked_highest=True (explicit one-dispatch 6-pass) must meet
-    the SAME parity budget against the condensed linear engine as the
-    native Precision.HIGHEST kernel (the two differ from each other
-    only by amplified last-bit rounding)."""
-    from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-        _build_fused_operator,
-        _center_and_pack,
-        _make_rollout_from_fused,
-    )
-
-    plant, ctrl, rng = _make_setup(n_mpc_step=1)
-    K, n_steps, B = 8, 40, 16
-    bm = build_affine_block_map(
-        plant.as_params(), ctrl._op, n=4, m=2, p=2,
-        solves_per_block=K, dtype=jnp.float32,
-    )
-    n_outer = n_steps // K
-    x0s = jnp.tile(
-        jnp.asarray(plant.get_state(), jnp.float32)[None], (B, 1)
-    )
-    ups = jnp.tile(
-        jnp.asarray(ctrl.u_past.reshape(4, 2), jnp.float32)[None],
-        (B, 1, 1),
-    )
-    yps = jnp.tile(
-        jnp.asarray(ctrl.y_past.reshape(4, 2), jnp.float32)[None],
-        (B, 1, 1),
-    )
-    Ws = jnp.asarray(
-        0.002 * rng.uniform(-1, 1, (B, n_steps, 2)), jnp.float32
-    )
-    ref = make_linear_batched_rollout(bm, n_steps=n_steps)(
-        x0s, ups, yps, Ws
-    )
-    s0, W_packed = _center_and_pack(
-        bm, x0s, ups, yps, Ws, n_outer, K, 0
-    )
-    fused = _build_fused_operator(bm)
-    kern = _make_rollout_from_fused(
-        fused, n_outer, batch_block=8, interpret=True,
-        stacked_highest=True,
-    )
-    U, Y, C, s_fin = kern(s0, W_packed)
-    u_sys = np.asarray(U).transpose(1, 0, 2).reshape(B, n_steps, 2)
-    y_sys = np.asarray(Y).transpose(1, 0, 2).reshape(B, n_steps, 2)
-    np.testing.assert_allclose(
-        u_sys, np.asarray(ref.u_sys), atol=2e-5
-    )
-    np.testing.assert_allclose(
-        y_sys, np.asarray(ref.y_sys), atol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(C).transpose(1, 0, 2).reshape(B, n_steps),
-        np.asarray(ref.costs), rtol=1e-3, atol=1e-5,
-    )
+        # The harness sums the CENTERED final state (s - s_star).
+        s_fin = jnp.concatenate(
+            [res.x_final, res.u_past.reshape(B, -1),
+             res.y_past.reshape(B, -1)], axis=1,
+        ) - bm.s_star[None]
+        expect += float(
+            jnp.sum(res.costs[:, -K:]) + jnp.sum(s_fin)
+            + jnp.sum(res.u_sys) + jnp.sum(res.y_sys)
+        )
+    np.testing.assert_allclose(float(cs3), expect, rtol=1e-5)

@@ -7,13 +7,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.parallel.batch import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.parallel.batch import (
     batched_closed_loop,
     draw_noise_batch,
     make_batched_rollout,
 )
-from direct_data_driven_mpc_tpu.parallel.mesh import (
+from direct_data_driven_mpc_jax.parallel.mesh import (
     make_mesh_rollout,
     make_scenario_mesh,
 )
@@ -133,7 +133,7 @@ def test_jitted_batched_rollout_compiles_once(setup):
 
 
 def test_mesh_admm_solver_matches_vmap(setup):
-    from direct_data_driven_mpc_tpu.qp.spec import SlackVarConstraintTypes
+    from direct_data_driven_mpc_jax.qp.spec import SlackVarConstraintTypes
 
     plant, ctrl, rng = _make_setup(
         slack=SlackVarConstraintTypes.CONVEX, n_mpc_step=1
@@ -165,11 +165,11 @@ def test_mesh_admm_solver_matches_vmap(setup):
 
 
 def test_sharded_linear_rollout_matches_unsharded(setup):
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         build_affine_block_map,
         make_linear_batched_rollout,
     )
-    from direct_data_driven_mpc_tpu.parallel.mesh import (
+    from direct_data_driven_mpc_jax.parallel.mesh import (
         make_sharded_linear_rollout,
     )
 
@@ -203,11 +203,11 @@ def test_sharded_fused_rollout_matches_unsharded(setup):
     """The fused-operator engine (Pallas kernel's XLA scan twin) under
     shard_map over 8 virtual devices: same trajectories as the
     unsharded condensed engine, result sharded, psum metrics correct."""
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         build_affine_block_map,
         make_linear_batched_rollout,
     )
-    from direct_data_driven_mpc_tpu.parallel.mesh import (
+    from direct_data_driven_mpc_jax.parallel.mesh import (
         make_sharded_fused_rollout,
     )
 
@@ -232,7 +232,7 @@ def test_sharded_fused_rollout_matches_unsharded(setup):
         jax.random.key(2), B, n_steps, 2, 0.002, dtype=jnp.float32
     )
     sharded = make_sharded_fused_rollout(
-        mesh, bm, n_steps=n_steps, backend="xla"
+        mesh, bm, n_steps=n_steps
     )
     res, metrics = sharded(x0s, ups, yps, Ws)
     ref = make_linear_batched_rollout(bm, n_steps=n_steps)(
@@ -256,18 +256,18 @@ def test_sharded_fused_rollout_matches_unsharded(setup):
 def test_heterogeneous_scenarios_all_axes_vary():
     """Noise seeds, data realizations (distinct solution operators),
     and plant perturbations all vmapped in one batch."""
-    from direct_data_driven_mpc_tpu.models.random_lti import (
+    from direct_data_driven_mpc_jax.models.random_lti import (
         random_stable_lti,
     )
-    from direct_data_driven_mpc_tpu.parallel.batch import (
+    from direct_data_driven_mpc_jax.parallel.batch import (
         heterogeneous_closed_loop,
         stack_plants,
         stack_solution_maps,
     )
-    from direct_data_driven_mpc_tpu.control.controller import (
+    from direct_data_driven_mpc_jax.control.controller import (
         DirectDataDrivenMPCController,
     )
-    from direct_data_driven_mpc_tpu.qp.spec import (
+    from direct_data_driven_mpc_jax.qp.spec import (
         DataDrivenMPCType,
         SlackVarConstraintTypes,
     )

@@ -3,8 +3,8 @@
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from direct_data_driven_mpc_tpu.models.c2d import c2d_zoh
-from direct_data_driven_mpc_tpu.ops.host import (
+from direct_data_driven_mpc_jax.models.c2d import c2d_zoh
+from direct_data_driven_mpc_jax.ops.host import (
     estimate_initial_state_np,
     hankel_matrix_np,
     lti_rollout_np,

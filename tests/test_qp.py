@@ -10,14 +10,14 @@ import numpy as np
 import pytest
 import scipy.linalg
 
-from direct_data_driven_mpc_tpu.ops.hankel import hankel_matrix
-from direct_data_driven_mpc_tpu.ops.lti import LTIParams, lti_rollout
-from direct_data_driven_mpc_tpu.qp.admm import (
+from direct_data_driven_mpc_jax.ops.hankel import hankel_matrix
+from direct_data_driven_mpc_jax.ops.lti import LTIParams, lti_rollout
+from direct_data_driven_mpc_jax.qp.admm import (
     admm_solve,
     compute_admm_solver,
 )
-from direct_data_driven_mpc_tpu.qp.assembly import build_qp_spec
-from direct_data_driven_mpc_tpu.qp.solution_map import (
+from direct_data_driven_mpc_jax.qp.assembly import build_qp_spec
+from direct_data_driven_mpc_jax.qp.solution_map import (
     compute_solution_operator_np,
     compute_solution_map,
     kkt_residuals,
@@ -25,7 +25,7 @@ from direct_data_driven_mpc_tpu.qp.solution_map import (
     solve_full,
     solve_u,
 )
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     QPDims,
     SlackVarConstraintTypes,
@@ -240,7 +240,7 @@ def test_admm_over_relaxation_same_fixed_point_fewer_iters():
     plain ADMM (alpha in (0,2) leaves fixed points unchanged) in
     strictly fewer iterations on this problem; every path (numpy,
     device, native C if built) agrees."""
-    from direct_data_driven_mpc_tpu.qp.admm import (
+    from direct_data_driven_mpc_jax.qp.admm import (
         admm_solve_np,
         compute_admm_operator_np,
     )
@@ -280,7 +280,7 @@ def test_admm_over_relaxation_same_fixed_point_fewer_iters():
     # Native C path (if the extension built) matches the numpy path to
     # float64 rounding on the same iteration (the C kernel fuses the
     # row updates, so summation order differs at the ulp level).
-    from direct_data_driven_mpc_tpu import native
+    from direct_data_driven_mpc_jax import native
 
     if native.get_lib() is not None:
         op = compute_admm_operator_np(spec)
@@ -299,7 +299,7 @@ def test_admm_over_relaxation_same_fixed_point_fewer_iters():
 
 
 def test_admm_alpha_out_of_range_rejected():
-    from direct_data_driven_mpc_tpu.qp.admm import (
+    from direct_data_driven_mpc_jax.qp.admm import (
         compute_admm_operator_np,
     )
 

@@ -2,7 +2,7 @@
 
 The pairwise parity tests pin the four-tank shapes; this sweep checks
 the host loop == generic engine == condensed engine == time-parallel
-engine == Pallas kernel identity holds across arbitrary
+engine == fused rollout identity holds across arbitrary
 (ns, n, m, p, L, N, n_mpc_step) combinations -- including plants whose
 true order differs from the controller's model order, n-step cadence
 with trailing-block trimming, and the UCON (no terminal constraint)
@@ -14,23 +14,23 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_linear_engine,
     linear_closed_loop_rollout,
     time_parallel_rollout,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.control.operation import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.control.operation import (
     simulate_data_driven_mpc_control_loop,
 )
-from direct_data_driven_mpc_tpu.models.random_lti import random_stable_lti
-from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-    pallas_batched_rollout,
+from direct_data_driven_mpc_jax.models.random_lti import random_stable_lti
+from direct_data_driven_mpc_jax.ops.fused_rollout import (
+    fused_batched_rollout,
 )
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )
@@ -103,19 +103,18 @@ def test_all_engines_agree_on_random_dims(
         bm, x0, up, yp, w_sys,
         n_steps=n_steps, n_mpc_step=n_mpc_step,
     )
-    # Pallas kernel (interpret mode on CPU; computes in float32).
+    # Fused condensed rollout (computes in float32).
     bm32 = build_linear_engine(
         plant=plant.as_params(), controller=ctrl,
         solves_per_block=2, dtype=jnp.float32,
     )
-    pallas = pallas_batched_rollout(
+    fused = fused_batched_rollout(
         bm32,
         jnp.asarray(x0, jnp.float32)[None],
         jnp.asarray(up, jnp.float32)[None],
         jnp.asarray(yp, jnp.float32)[None],
         jnp.asarray(w_sys, jnp.float32)[None],
         n_steps=n_steps, n_mpc_step=n_mpc_step,
-        batch_block=1, interpret=True,
     )
 
     np.testing.assert_allclose(
@@ -133,12 +132,12 @@ def test_all_engines_agree_on_random_dims(
     np.testing.assert_allclose(
         np.asarray(time_par.y_sys), y_host, atol=1e-8
     )
-    # Short rollouts: f32 kernel parity well inside the 1e-4 budget.
+    # Short rollouts: f32 fused parity well inside the 1e-4 budget.
     np.testing.assert_allclose(
-        np.asarray(pallas.u_sys[0]), u_host, atol=1e-4
+        np.asarray(fused.u_sys[0]), u_host, atol=1e-4
     )
     np.testing.assert_allclose(
-        np.asarray(pallas.y_sys[0]), y_host, atol=1e-4
+        np.asarray(fused.y_sys[0]), y_host, atol=1e-4
     )
     # Per-solve costs agree across engines too.
     np.testing.assert_allclose(

@@ -1,7 +1,7 @@
 """BASELINE configs 3 and 5: long-horizon and large-plant scaling.
 
 Exercised at reduced batch/steps on CPU; the bench runs them at full
-scale on the TPU (bench.py --config).
+scale on the GPU (bench.py <config>).
 """
 
 import numpy as np
@@ -10,18 +10,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_affine_block_map,
     linear_closed_loop_rollout,
     make_linear_batched_rollout,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-from direct_data_driven_mpc_tpu.models.random_lti import random_stable_lti
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+from direct_data_driven_mpc_jax.models.random_lti import random_stable_lti
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )

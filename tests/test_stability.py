@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_affine_block_map,
     closed_loop_spectrum,
     linear_closed_loop_rollout,

@@ -6,11 +6,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_affine_block_map,
     linear_closed_loop_rollout,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
 
 from tests.test_closed_loop import _make_setup
 

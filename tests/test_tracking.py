@@ -12,12 +12,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.controller import (
+from direct_data_driven_mpc_jax.control.controller import (
     DirectDataDrivenMPCController,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.models.lti_model import LTIModel
-from direct_data_driven_mpc_tpu.qp.solution_map import (
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.models.lti_model import LTIModel
+from direct_data_driven_mpc_jax.qp.solution_map import (
     compute_solution_map,
     compute_tracking_map,
     optimal_cost,
@@ -25,7 +25,7 @@ from direct_data_driven_mpc_tpu.qp.solution_map import (
     solve_u_tracking,
     tracking_cost,
 )
-from direct_data_driven_mpc_tpu.qp.spec import (
+from direct_data_driven_mpc_jax.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )

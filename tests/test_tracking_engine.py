@@ -1,6 +1,6 @@
 """Tracking-condensed engine: setpoint schedules through the fused
 engines (control/linear_engine.py ``tracking_op`` channel +
-ops/pallas_rollout.py ``setpoints``).
+ops/fused_rollout.py ``setpoints``).
 
 The reference can only retarget by re-running its entire init pipeline
 per setpoint change (direct_data_driven_mpc_controller.py:945-982);
@@ -8,7 +8,7 @@ the generic loop already tracks per-solve schedules via TrackingMap
 (tests/test_tracking.py). Here the schedule rides the CONDENSED fused
 engines: the setpoint delta is appended to each block's input lanes
 (one ``[u_s; y_s]`` per outer block), so tracking runs at full
-fused-kernel throughput.
+fused-engine throughput.
 """
 
 import numpy as np
@@ -17,14 +17,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.linear_engine import (
+from direct_data_driven_mpc_jax.control.linear_engine import (
     build_linear_engine,
     build_tracking_engine,
     make_linear_batched_rollout,
 )
-from direct_data_driven_mpc_tpu.control.loop import closed_loop_rollout
-from direct_data_driven_mpc_tpu.ops.pallas_rollout import (
-    pallas_batched_rollout,
+from direct_data_driven_mpc_jax.control.loop import closed_loop_rollout
+from direct_data_driven_mpc_jax.ops.fused_rollout import (
+    fused_batched_rollout,
     suggest_solves_per_block,
 )
 
@@ -80,12 +80,12 @@ def test_constant_setpoint_reduces_to_plain_engine(setup):
     plain condensed engine (the dr lanes multiply exact zeros)."""
     _, _, bm, bm_t, _, batch, r0 = setup
     x0s, ups, yps, Ws = batch
-    res = pallas_batched_rollout(
-        bm_t, x0s, ups, yps, Ws, n_steps=T, backend="xla",
+    res = fused_batched_rollout(
+        bm_t, x0s, ups, yps, Ws, n_steps=T,
         setpoints=jnp.asarray(r0, jnp.float32),
     )
-    ref = pallas_batched_rollout(
-        bm, x0s, ups, yps, Ws, n_steps=T, backend="xla"
+    ref = fused_batched_rollout(
+        bm, x0s, ups, yps, Ws, n_steps=T
     )
     np.testing.assert_array_equal(
         np.asarray(res.u_sys), np.asarray(ref.u_sys)
@@ -101,9 +101,8 @@ def test_constant_setpoint_reduces_to_plain_engine(setup):
     )
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_schedule_matches_generic_tracking_loop(setup, backend):
-    """A stepped setpoint schedule through the fused engines must match
+def test_schedule_matches_generic_tracking_loop(setup):
+    """A stepped setpoint schedule through the fused engine must match
     the generic loop driving the SAME schedule through TrackingMap
     (per-solve granularity, constant within each outer block)."""
     plant_params, ctrl, _, bm_t, single, batch, r0 = setup
@@ -116,10 +115,9 @@ def test_schedule_matches_generic_tracking_loop(setup, backend):
         setpoints=jnp.asarray(np.repeat(sched_blocks, K, axis=0),
                               jnp.float32),
     )
-    kw = dict(batch_block=4, interpret=True) if backend == "pallas" else {}
-    res = pallas_batched_rollout(
-        bm_t, x0s, ups, yps, Ws, n_steps=T, backend=backend,
-        setpoints=jnp.asarray(sched_blocks, jnp.float32), **kw,
+    res = fused_batched_rollout(
+        bm_t, x0s, ups, yps, Ws, n_steps=T,
+        setpoints=jnp.asarray(sched_blocks, jnp.float32),
     )
     np.testing.assert_allclose(
         np.asarray(res.u_sys[0]), np.asarray(gen.u_sys), atol=2e-5
@@ -150,15 +148,15 @@ def test_per_scenario_schedules(setup):
     sched = np.stack(
         [np.tile(s * r0, (n_outer, 1)) for s in scales]
     )  # (B, n_outer, n_r)
-    res = pallas_batched_rollout(
-        bm_t, x0s, ups, yps, Ws, n_steps=T, backend="xla",
+    res = fused_batched_rollout(
+        bm_t, x0s, ups, yps, Ws, n_steps=T,
         setpoints=jnp.asarray(sched, jnp.float32),
     )
     # Each lane must match its own constant-setpoint run.
     for b in (0, B - 1):
-        solo = pallas_batched_rollout(
+        solo = fused_batched_rollout(
             bm_t, x0s[b : b + 1], ups[b : b + 1], yps[b : b + 1],
-            Ws[b : b + 1], n_steps=T, backend="xla",
+            Ws[b : b + 1], n_steps=T,
             setpoints=jnp.asarray(scales[b] * r0, jnp.float32),
         )
         np.testing.assert_array_equal(
@@ -170,12 +168,12 @@ def test_validation(setup):
     _, _, bm, bm_t, _, batch, r0 = setup
     x0s, ups, yps, Ws = batch
     with pytest.raises(ValueError, match="requires a `setpoints`"):
-        pallas_batched_rollout(
-            bm_t, x0s, ups, yps, Ws, n_steps=T, backend="xla"
+        fused_batched_rollout(
+            bm_t, x0s, ups, yps, Ws, n_steps=T
         )
     with pytest.raises(ValueError, match="requires a tracking"):
-        pallas_batched_rollout(
-            bm, x0s, ups, yps, Ws, n_steps=T, backend="xla",
+        fused_batched_rollout(
+            bm, x0s, ups, yps, Ws, n_steps=T,
             setpoints=jnp.asarray(r0, jnp.float32),
         )
     with pytest.raises(ValueError, match="requires a `setpoints`"):
@@ -184,7 +182,7 @@ def test_validation(setup):
         make_linear_batched_rollout(
             bm, n_steps=T, setpoints=jnp.asarray(r0, jnp.float32)
         )(x0s, ups, yps, Ws)
-    # The kernel sweet-spot helper accounts for the setpoint lanes.
+    # The block-shape helper accounts for the setpoint lanes.
     assert suggest_solves_per_block(4, 4, 2, 2, n_r=4) == (128 - 24) // 2
 
 
@@ -192,7 +190,7 @@ def test_sharded_tracking_rollout_matches_unsharded(setup):
     """The tracking engine under shard_map over 8 virtual devices: a
     per-scenario schedule shards over `data` with the other scenario
     arrays and reproduces the unsharded fused rollout."""
-    from direct_data_driven_mpc_tpu.parallel.mesh import (
+    from direct_data_driven_mpc_jax.parallel.mesh import (
         make_scenario_mesh,
         make_sharded_fused_rollout,
     )
@@ -209,11 +207,11 @@ def test_sharded_tracking_rollout_matches_unsharded(setup):
     # virtual devices; use a 4x1 mesh so B divides evenly).
     mesh = make_scenario_mesh(n_data=4, n_model=1)
     run = make_sharded_fused_rollout(
-        mesh, bm_t, n_steps=T, backend="xla"
+        mesh, bm_t, n_steps=T
     )
     res, metrics = run(x0s, ups, yps, Ws, sched)
-    ref = pallas_batched_rollout(
-        bm_t, x0s, ups, yps, Ws, n_steps=T, backend="xla",
+    ref = fused_batched_rollout(
+        bm_t, x0s, ups, yps, Ws, n_steps=T,
         setpoints=sched,
     )
     np.testing.assert_allclose(
@@ -248,9 +246,9 @@ def test_tracking_with_nstep_cadence():
     sched_blocks = np.stack(
         [r0 if i < n_outer // 2 else 0.8 * r0 for i in range(n_outer)]
     )
-    res = pallas_batched_rollout(
+    res = fused_batched_rollout(
         bm_t, x0[None], up[None], yp[None], Ws, n_steps=Tn,
-        n_mpc_step=4, backend="xla",
+        n_mpc_step=4,
         setpoints=jnp.asarray(sched_blocks, jnp.float32),
     )
     tm = ctrl.tracking_map(dtype=jnp.float32)
@@ -273,7 +271,7 @@ def test_classic_engines_track_schedules(setup):
     tracking maps too -- same schedule, same outputs as the fused XLA
     engine (which is itself pinned to the generic TrackingMap loop
     above)."""
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         linear_closed_loop_rollout,
         time_parallel_rollout,
     )
@@ -281,8 +279,8 @@ def test_classic_engines_track_schedules(setup):
     _, _, _, bm_t, _, batch, r0 = setup
     x0s, ups, yps, Ws = batch
     sched = jnp.asarray(_schedule(r0), jnp.float32)
-    ref = pallas_batched_rollout(
-        bm_t, x0s, ups, yps, Ws, n_steps=T, backend="xla",
+    ref = fused_batched_rollout(
+        bm_t, x0s, ups, yps, Ws, n_steps=T,
         setpoints=sched,
     )
 
@@ -333,7 +331,7 @@ def test_classic_engines_track_schedules(setup):
 def test_classic_engines_tracking_at_dr0_bit_exact(setup):
     """At dr = 0 the classic engines on the tracking map reproduce the
     plain condensed map bit-for-bit (u/y; costs to f32 rounding)."""
-    from direct_data_driven_mpc_tpu.control.linear_engine import (
+    from direct_data_driven_mpc_jax.control.linear_engine import (
         linear_closed_loop_rollout,
     )
 

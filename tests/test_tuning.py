@@ -11,12 +11,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from direct_data_driven_mpc_tpu.control.tuning import (
+from direct_data_driven_mpc_jax.control.tuning import (
     differentiable_solution_map,
     make_closed_loop_objective,
     tune_regularization,
 )
-from direct_data_driven_mpc_tpu.qp.solution_map import (
+from direct_data_driven_mpc_jax.qp.solution_map import (
     compute_solution_operator_np,
 )
 
